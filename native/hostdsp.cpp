@@ -1,7 +1,7 @@
 // hostdsp: native host-side runtime for rtlsdr_wsprd_tpu.
 //
-// The reference's runtime is C (rtlsdr_wsprd.c / wsprd/); the TPU
-// framework keeps its hot numeric path on the device (JAX/Pallas) and
+// The reference's runtime is C (rtlsdr_wsprd.c / wsprd/); this
+// framework keeps its hot numeric path on the device (JAX) and
 // implements the host-side protocol/ingest pieces natively here:
 //
 //   * wspr_nhash        — Bob Jenkins lookup3 hashlittle (byte-wise
@@ -10,7 +10,7 @@
 //                         utils/nhash.py (reference: wsprd/nhash.c).
 //   * wspr_fano_decode  — sequential Fano decoder for the K=32 r=1/2
 //                         code, semantically identical to the batched
-//                         TPU decoder (ops/fano.py): same threshold
+//                         device decoder (ops/fano.py): same threshold
 //                         walk, cycle accounting and byte extraction.
 //                         Serves as the host parity oracle and a
 //                         CPU-only fallback (reference: wsprd/fano.c).
@@ -399,9 +399,9 @@ void u8_deinterleave_pairs(const uint8_t* raw, uint64_t n_pairs,
 // ---- host-placed polyphase front end ---------------------------------------
 //
 // The front end runs wherever the raw byte stream is cheapest to
-// deliver (frontend/host_decimate.py): on-device on PCIe-attached
-// chips (raw uint8 at 1 B/sample, the MXU does the math), on-host over
-// RPC-tunneled / link-constrained deployments — then only 375 sps
+// deliver (frontend/host_decimate.py): on-device by default (raw
+// uint8 at 1 B/sample), on-host for link-constrained deployments
+// (--frontend host) — then only 375 sps
 // float32 baseband crosses the link (~3 KB/s/channel, 1600x fewer
 // bytes than raw). Same math as the device kernel (_polyphase_pp,
 // frontend/decimate.py) and the reference's CIC+FIR chain

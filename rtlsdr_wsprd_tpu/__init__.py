@@ -1,20 +1,19 @@
-"""rtlsdr_wsprd_tpu — a TPU-native WSPR decode framework.
+"""rtlsdr_wsprd_tpu — a JAX WSPR decode framework.
 
-A from-scratch rebuild of the capabilities of Guenael/rtlsdr-wsprd
-(reference: /root/reference) as batched, sharded TPU computation in
-JAX/XLA/Pallas:
+A from-scratch rebuild of the capabilities of Guenael/rtlsdr-wsprd as
+batched, sharded accelerator computation in JAX/XLA:
 
 * ``utils``    — bit-exact host protocol codecs (callsign hash, message
                  pack/unpack, convolutional code, interleaver).
-* ``ops``      — the TPU compute path: STFT spectrogram, candidate
+* ``ops``      — the device compute path: STFT spectrogram, candidate
                  search, batched sync/demodulation correlators, batched
-                 Fano FEC decode, coherent signal subtraction, and the
-                 Pallas polyphase front end (2.4 Msps -> 375 sps).
+                 Fano FEC decode, coherent signal subtraction.
+* ``frontend`` — the polyphase front end (2.4 Msps -> 375 sps).
 * ``models``   — the flagship ``WsprDecoder`` pipeline: one jitted
                  program decoding all candidates x lags x drifts x
                  jitters of a 2-minute window at once.
-* ``parallel`` — device-mesh sharding: channels/windows over ICI/DCN,
-                 halo exchange for streaming filter state.
+* ``parallel`` — device-mesh sharding: channels/windows over devices
+                 and hosts, halo exchange for streaming filter state.
 * ``runtime``  — host orchestration: 2-minute scheduler, IQ sources,
                  daemon shell.
 """

@@ -1,14 +1,14 @@
-"""TPU-native streaming front end: 2.4 Msps raw IQ -> 375 sps baseband.
+"""Streaming front end: 2.4 Msps raw IQ -> 375 sps baseband.
 
 Replaces the reference's per-sample C chain — uint8 recenter + fs/4
 economic mixer (rtlsdr_wsprd.c:158-182), CIC N=2 R=6400 decimator
 (:184-218) and 33-tap droop-compensation FIR (:220-234) — with ONE
-two-stage polyphase FIR decimator designed for the MXU:
+two-stage polyphase FIR decimator built from dense matmuls:
 
   stage 1: 2.4 Msps -> 30 ksps (R=80), complex coefficients that fold
            the fs/4 downmix into the filter (80 = 0 mod 4 makes the
-           per-output-sample mixer phase vanish), Pallas kernel with
-           fused uint8->float conversion so HBM sees 1 byte/sample;
+           per-output-sample mixer phase vanish), uint8->float
+           conversion fused on device so the link carries 1 byte/sample;
   stage 2: 30 ksps -> 375 sps (R=80), sharp real lowpass.
 
 Deliberate divergences (documented, SURVEY.md section 7): exact 6400:1

@@ -75,6 +75,13 @@ def _pp_mats():
     return _PP
 
 
+# Matmul precision of both polyphase stages. DEFAULT lets the GPU run
+# the float32 operands as TF32 (10-bit mantissa; uint8 input samples are
+# exact in it); chip_smoke.py measures the error of both DEFAULT and
+# HIGHEST against a float64 polyphase reference.
+PRECISION = jax.lax.Precision.DEFAULT
+
+
 def _center_f32(x: jnp.ndarray) -> jnp.ndarray:
     """uint8 RTL bytes -> centered float32 on device; floats pass
     through (already centered)."""
@@ -83,8 +90,8 @@ def _center_f32(x: jnp.ndarray) -> jnp.ndarray:
     return x.astype(jnp.float32)
 
 
-@partial(jax.jit, static_argnames=("n_frames",))
-def _polyphase_pp(xI, xQ, Htop, Hbot, n_frames: int):
+@partial(jax.jit, static_argnames=("n_frames", "precision"))
+def _polyphase_pp(xI, xQ, Htop, Hbot, n_frames: int, precision=PRECISION):
     """xI/xQ: float32 or uint8[..., n_frames*R + T - R]; returns planar
     (float32[..., n_frames], float32[..., n_frames]). Leading dims are
     batch (channels)."""
@@ -95,8 +102,8 @@ def _polyphase_pp(xI, xQ, Htop, Hbot, n_frames: int):
     lead = fI.shape[:-1]
     rowsI = fI.reshape(*lead, n_frames + tpp - 1, R)
     rowsQ = fQ.reshape(*lead, n_frames + tpp - 1, R)
-    P = (jnp.dot(rowsI, Htop, preferred_element_type=jnp.float32)
-         + jnp.dot(rowsQ, Hbot, preferred_element_type=jnp.float32))
+    kw = dict(precision=precision, preferred_element_type=jnp.float32)
+    P = jnp.dot(rowsI, Htop, **kw) + jnp.dot(rowsQ, Hbot, **kw)
     yI = P[..., 0:n_frames, 0]
     yQ = P[..., 0:n_frames, 1]
     for t in range(1, tpp):
@@ -106,17 +113,17 @@ def _polyphase_pp(xI, xQ, Htop, Hbot, n_frames: int):
 
 
 def decimate_stage1_xla(xI: jnp.ndarray, xQ: jnp.ndarray,
-                        n_frames: int):
+                        n_frames: int, precision=PRECISION):
     """2.4 Msps planar float32 (or raw uint8) -> 30 ksps planar (I, Q)
     float32 (fs/4 mix folded in). Input length must be
     n_frames*R1 + STAGE1_TAPS - R1; leading batch dims allowed.
     """
     H1t, H1b, _, _ = _pp_mats()
-    return _polyphase_pp(xI, xQ, H1t, H1b, n_frames)
+    return _polyphase_pp(xI, xQ, H1t, H1b, n_frames, precision)
 
 
 def decimate_stage1_batched(xI: jnp.ndarray, xQ: jnp.ndarray,
-                            n_frames: int):
+                            n_frames: int, precision=PRECISION):
     """Stage-1 polyphase over a CHANNEL batch: (C, L) planar float32 or
     uint8 -> (C, n_frames) planar, L = n_frames*R1 + STAGE1_TAPS - R1.
 
@@ -125,7 +132,7 @@ def decimate_stage1_batched(xI: jnp.ndarray, xQ: jnp.ndarray,
     path is many channels in lockstep and single-stream callers
     predate the unification.
     """
-    return decimate_stage1_xla(xI, xQ, n_frames)
+    return decimate_stage1_xla(xI, xQ, n_frames, precision)
 
 
 def decimate_stage2_xla(midI: jnp.ndarray, midQ: jnp.ndarray,
@@ -148,7 +155,6 @@ def decimate_stage2_batched(midI: jnp.ndarray, midQ: jnp.ndarray,
 
 def decimate_window(
     rawI: np.ndarray, rawQ: np.ndarray, n_out: int | None = None,
-    use_pallas: bool = False,
 ) -> tuple[np.ndarray, np.ndarray]:
     """One-shot 2.4 Msps -> 375 sps planar (I, Q) for a whole capture.
 
@@ -172,13 +178,8 @@ def decimate_window(
 
     n_mid = (xI.shape[0] - (STAGE1_TAPS - R1)) // R1
     need = n_mid * R1 + STAGE1_TAPS - R1
-    if use_pallas:
-        from .pallas_decimate import decimate_stage1_pallas
-        midI, midQ = decimate_stage1_pallas(
-            jnp.asarray(xI[:need]), jnp.asarray(xQ[:need]), n_mid)
-    else:
-        midI, midQ = decimate_stage1_xla(
-            jnp.asarray(xI[:need]), jnp.asarray(xQ[:need]), n_mid)
+    midI, midQ = decimate_stage1_xla(
+        jnp.asarray(xI[:need]), jnp.asarray(xQ[:need]), n_mid)
 
     prime2 = STAGE2_TAPS // 2
     z = jnp.zeros(prime2, jnp.float32)
@@ -209,8 +210,7 @@ class StreamingDecimator:
     QUANT1 = 7500   # stage-1 output frames (0.25 s of mid-rate)
     QUANT2 = 125    # stage-2 output frames (1/3 s of baseband)
 
-    def __init__(self, use_pallas: bool = False):
-        self.use_pallas = use_pallas
+    def __init__(self):
         prime1 = STAGE1_TAPS // 2
         prime2 = STAGE2_TAPS // 2
         # prime half a filter of zeros so output m ~ input time m*6400
@@ -240,15 +240,9 @@ class StreamingDecimator:
             n_mid -= n_mid % self.QUANT1
         if n_mid > 0:
             need = n_mid * R1 + self._tail1
-            if self.use_pallas:
-                from .pallas_decimate import decimate_stage1_pallas
-                mi, mq = decimate_stage1_pallas(
-                    jnp.asarray(self._bufI[:need]),
-                    jnp.asarray(self._bufQ[:need]), n_mid)
-            else:
-                mi, mq = decimate_stage1_xla(
-                    jnp.asarray(self._bufI[:need]),
-                    jnp.asarray(self._bufQ[:need]), n_mid)
+            mi, mq = decimate_stage1_xla(
+                jnp.asarray(self._bufI[:need]),
+                jnp.asarray(self._bufQ[:need]), n_mid)
             consumed = n_mid * R1
             self._bufI = self._bufI[consumed:]
             self._bufQ = self._bufQ[consumed:]
@@ -273,8 +267,9 @@ class StreamingDecimator:
                          exact=True)
 
 
-@partial(jax.jit, static_argnames=("n_mid",))
-def _fused_frontend_step(rawI, rawQ, m2I, m2Q, n_mid: int):
+@partial(jax.jit, static_argnames=("n_mid", "precision"))
+def _fused_frontend_step(rawI, rawQ, m2I, m2Q, n_mid: int,
+                         precision=PRECISION):
     """One fused stage-1 + stage-2 device step for C channels.
 
     rawI/rawQ: uint8|float32[C, n_mid*R1 + tail1] raw chunk (the 560
@@ -287,13 +282,14 @@ def _fused_frontend_step(rawI, rawQ, m2I, m2Q, n_mid: int):
     the second step on, so steady state reuses one executable."""
     H1t, H1b, H2t, H2b = _pp_mats()
     tail2 = STAGE2_TAPS - R2
-    mi, mq = _polyphase_pp(rawI, rawQ, H1t, H1b, n_mid)
+    mi, mq = _polyphase_pp(rawI, rawQ, H1t, H1b, n_mid, precision)
     midI = jnp.concatenate([m2I, mi], axis=1)
     midQ = jnp.concatenate([m2Q, mq], axis=1)
     n_out = (midI.shape[1] - tail2) // R2
     need2 = n_out * R2
     oi, oq = _polyphase_pp(midI[:, :need2 + tail2],
-                           midQ[:, :need2 + tail2], H2t, H2b, n_out)
+                           midQ[:, :need2 + tail2], H2t, H2b, n_out,
+                           precision)
     return oi, oq, midI[:, need2:], midQ[:, need2:]
 
 

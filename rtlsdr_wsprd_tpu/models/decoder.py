@@ -1,7 +1,7 @@
 """The batched WSPR window decoder — the framework's flagship model.
 
 Equivalent of the reference's ``wspr_decode`` (wsprd/wsprd.c:416-855),
-re-architected for TPU: instead of the C's sequential per-candidate
+re-architected for an accelerator: instead of the C's sequential per-candidate
 refinement and per-jitter FEC attempts, one jitted device program
 evaluates ALL candidates x lags x freqs x jitters as dense tensors,
 and a single batched Fano call decodes every gate-passing attempt at
@@ -106,8 +106,8 @@ def _analyze_pass(
 ):
     """Device part of one pass: everything up to (but excluding) Fano.
 
-    I/Q are planar float32 throughout the device path (no complex
-    dtype on TPU; see ops/sync.py)."""
+    I/Q are planar float32 throughout the device path (see
+    ops/sync.py)."""
     ps = power_spectrogram(sig_i, sig_q)
     cand = find_candidates(ps, fmin, fmax)
     coarse = coarse_search(ps, cand.bin_idx, maxdrift)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from . import __version__
+from . import __version__, compile_cache
 from .cli import parse_frequency
 from .config import DecoderOptions
 from .runtime.banks import RtlTcpBank, SyntheticRawBank
@@ -33,7 +33,7 @@ from .runtime.reporting import WsprnetReporter
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rtlsdr_wsprd_tpu.multicli",
-        description="TPU-native many-channel WSPR daemon",
+        description="JAX many-channel WSPR daemon",
         add_help=False,
     )
     p.add_argument("--endpoint", action="append", default=[],
@@ -73,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="where the 6400:1 decimator runs: device (raw "
                         "uint8 to the chip), host (native C++; only "
-                        "375 sps baseband crosses the link), or auto "
-                        "(host on RPC-tunneled backends)")
+                        "375 sps baseband crosses the link); auto is "
+                        "device")
     p.add_argument("-w", dest="writefile", metavar="PREFIX", default=None,
                    help="save each channel's normalized window as "
                         "PREFIX_chNN_<timestamp>.iq (reference -w)")
@@ -116,6 +116,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    compile_cache.enable()
 
     if bool(args.endpoint) == bool(args.synth):
         print("Specify either --endpoint (one per channel) or "

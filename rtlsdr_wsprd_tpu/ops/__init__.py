@@ -1,4 +1,4 @@
-"""TPU compute path: batched JAX/Pallas kernels for the WSPR decode chain."""
+"""Device compute path: batched JAX ops for the WSPR decode chain."""
 
 from .stft import power_spectrogram, BLOCKS  # noqa: F401
 from .candidates import find_candidates  # noqa: F401

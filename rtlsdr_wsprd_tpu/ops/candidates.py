@@ -5,7 +5,7 @@ as fixed-shape vector ops: 7-point boxcar smoothing of the average
 spectrum over the center +/-150 Hz, a 30th-percentile noise floor via a
 full sort, SNR renormalization, local-maxima masking, and a stable
 descending sort into a fixed-size candidate tensor with a validity
-mask (TPU-friendly replacement for the C's early-exit candidate list).
+mask (a static-shape replacement for the C's early-exit candidate list).
 """
 
 from __future__ import annotations

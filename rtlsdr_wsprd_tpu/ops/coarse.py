@@ -5,9 +5,9 @@ The reference runs a triple-nested grid per candidate sequentially
 drifts, scoring a pr3-signed sum of sqrt-power at the 4 tone bins over
 162 symbols.
 
-TPU formulation: the score at grid point (row r, lag l, drift d) is the
+Batched formulation: the score at grid point (row r, lag l, drift d) is the
 same for every candidate whose frequency row lands on r, so the whole
-(row x lag x drift) score table is computed ONCE as a single MXU
+(row x lag x drift) score table is computed ONCE as a single
 matmul and candidates just read their 3 rows from it:
 
   1. The C's per-symbol row offset trunc(ifr + fd(i, d)) factorizes as
@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -95,21 +96,27 @@ def _weights() -> tuple[np.ndarray, np.ndarray, int]:
 
 _W, _SHIFTS, _NS = _weights()
 
+# Matmul precision of the score-table matmul. DEFAULT lets the GPU run
+# the float32 operands as TF32 (10-bit mantissa); chip_smoke.py
+# measures the error of both DEFAULT and HIGHEST against float64.
+PRECISION = jax.lax.Precision.DEFAULT
 
-def coarse_search(ps: jnp.ndarray, bin_idx: jnp.ndarray, maxdrift=4) -> CoarseEstimate:
-    """ps: float32[512, BLOCKS]; bin_idx: int32[C] smspec bin per candidate.
+# rows any candidate can read (if0 +/- 1 over the smspec bins); the
+# row-shift roll below wraps only outside them
+ROW_LO, ROW_HI = 45, 467
 
-    Returns the best (freq, shift, drift, sync) per candidate over the
-    full grid, with the C's first-max-wins tie-breaking in (ifr, k0,
-    idrift) loop order (wsprd/wsprd.c:646-678).
-    """
+
+def coarse_grid(ps: jnp.ndarray, precision=PRECISION):
+    """ps: float32[512, BLOCKS] -> (ss, pw), each float32[512, 32, 9]:
+    the pr3-signed tone-difference sum and the total tone power of every
+    (row, lag k0, drift) grid point (wsprd/wsprd.c:655-673). Valid on
+    rows ROW_LO..ROW_HI."""
     sqrtps = jnp.sqrt(ps)  # (512, BLOCKS)
 
     # G[r, l, i] = sqrtps[r, k0_l + 2i], zero outside [0, BLOCKS)
     pad_l = -2 * K0_MIN  # generous left pad (k0 >= -10)
     # split even/odd columns ONCE (a (.., n, 2) reshape), so each lag
-    # is a contiguous slice — 32 stride-2 slices would each pay a
-    # lane shuffle on TPU
+    # is a contiguous slice instead of one of 32 stride-2 slices
     padded = jnp.pad(sqrtps, ((0, 0), (pad_l, 65)))  # width 432, even
     pairs = padded.reshape(N_ROWS, -1, 2)
     eo = (pairs[:, :, 0], pairs[:, :, 1])
@@ -120,18 +127,29 @@ def coarse_search(ps: jnp.ndarray, bin_idx: jnp.ndarray, maxdrift=4) -> CoarseEs
         cols.append(half[:, start // 2:start // 2 + NSYM])
     G = jnp.stack(cols, axis=1)  # (512, 32, 162)
 
-    # one MXU matmul gives every (row, lag, drift, shift, kind) sum
+    # one matmul gives every (row, lag, drift, shift, kind) sum
     out = jnp.dot(G.reshape(N_ROWS * N_LAG, NSYM), jnp.asarray(_W),
-                  preferred_element_type=jnp.float32)
+                  precision=precision, preferred_element_type=jnp.float32)
     out = out.reshape(N_ROWS, N_LAG, N_DRIFT, _NS, 2)
 
     # combine row shifts: S[r, l, d, kind] = sum_s out[r + s, l, d, s_idx]
     S = jnp.zeros((N_ROWS, N_LAG, N_DRIFT, 2), jnp.float32)
     for s_idx, s in enumerate(np.asarray(_SHIFTS)):
         S = S + jnp.roll(out[:, :, :, s_idx, :], -int(s), axis=0)
-    # (rows of interest are 45..467; the roll wrap never reaches them)
+    # (rows of interest are ROW_LO..ROW_HI; the roll wrap never
+    # reaches them)
+    return S[..., 0], S[..., 1]
 
-    sync_grid = S[..., 0] / jnp.maximum(S[..., 1], 1e-30)  # (512, 32, 9)
+
+def coarse_search(ps: jnp.ndarray, bin_idx: jnp.ndarray, maxdrift=4) -> CoarseEstimate:
+    """ps: float32[512, BLOCKS]; bin_idx: int32[C] smspec bin per candidate.
+
+    Returns the best (freq, shift, drift, sync) per candidate over the
+    full grid, with the C's first-max-wins tie-breaking in (ifr, k0,
+    idrift) loop order (wsprd/wsprd.c:646-678).
+    """
+    ss, pw = coarse_grid(ps)
+    sync_grid = ss / jnp.maximum(pw, 1e-30)  # (512, 32, 9)
 
     # drift mask (pass 3 runs with maxdrift=0, wsprd/wsprd.c:529)
     idrift = jnp.arange(-MAX_DRIFT_SPAN, MAX_DRIFT_SPAN + 1, dtype=jnp.int32)
@@ -140,8 +158,7 @@ def coarse_search(ps: jnp.ndarray, bin_idx: jnp.ndarray, maxdrift=4) -> CoarseEs
 
     # reduce the grid PER ROW first (first max wins over (k0, idrift) =
     # the C's inner loop order), so candidates gather only 3 scalars per
-    # row instead of 3 full (32, 9) planes — large batched gathers
-    # scalarize on TPU
+    # row instead of 3 full (32, 9) planes
     row_flat = sync_grid.reshape(N_ROWS, N_LAG * N_DRIFT)
     row_arg = jnp.argmax(row_flat, axis=1)                  # (512,)
     row_val = jnp.take_along_axis(row_flat, row_arg[:, None], axis=1)[:, 0]

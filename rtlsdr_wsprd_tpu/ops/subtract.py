@@ -10,10 +10,9 @@ and subtract c(t) * r(t) with partial-sum edge normalization.
 defines but never calls (wsprd/wsprd.c:263-312); implemented for API
 parity.
 
-Complex arithmetic is planar (re, im) float32 — the TPU has no native
-complex type; the LPF is a chunked im2col matvec (the conv primitive
-is avoided entirely: gathers + matmuls map better onto the TPU and
-sidestep backend conv support).
+Complex arithmetic is planar (re, im) float32; the LPF is a chunked
+im2col matvec (the conv primitive is avoided entirely, which also
+sidesteps backend conv support).
 """
 
 from __future__ import annotations
@@ -56,7 +55,7 @@ def _toeplitz_w3() -> np.ndarray:
         y[m*360 + t] = sum_k w[k] x[m*360 + t + 179 - k]
                      = sum_j xcat[m, j] * W3[j, t],
     W3[j, t] = w[t + 539 - j] where that index is in [0, 360).
-    (125, 1080) @ (1080, 360) is MXU-shaped — no gather, no scan.
+    (125, 1080) @ (1080, 360) is one dense matmul — no gather, no scan.
     """
     w3 = np.zeros((3 * NFILT, NFILT), np.float32)
     j = np.arange(3 * NFILT)[:, None]
@@ -81,10 +80,10 @@ def _fir_same(x: jnp.ndarray) -> jnp.ndarray:
         xp[NFILT:NFILT + SIGNAL_SAMPLES].reshape(_NFRAME, NFILT),
         xp[2 * NFILT:2 * NFILT + SIGNAL_SAMPLES].reshape(_NFRAME, NFILT),
     ], axis=1)                                     # (125, 1080)
-    # precision="highest": TPU default matmul truncates f32 operands to
-    # bfloat16 (verified on this backend); the subtraction rewrites
-    # SAMPLES, so a -48 dB filter error would leak into the pass-2
-    # residual right at the weak-signal floor
+    # precision="highest": a default-precision float32 matmul may round
+    # operands to TF32 or bfloat16 on an accelerator; the subtraction
+    # rewrites SAMPLES, so a -48 dB filter error would leak into the
+    # pass-2 residual right at the weak-signal floor
     y = jnp.dot(xcat, jnp.asarray(_W3), precision="highest",
                 preferred_element_type=jnp.float32)
     return y.reshape(-1)
@@ -117,8 +116,8 @@ def subtract_signal2(
     # s(t) * conj(r(t)) at k = shift + i, valid for 0 < k < np
     # (wsprd/wsprd.c:375-381); the C pads NFILT zeros in front.
     # k is CONTIGUOUS, so the extract is a dynamic_slice on a padded
-    # plane and the write-back a dynamic_update_slice — generic
-    # gathers/scatters scalarize on TPU and must not appear here.
+    # plane and the write-back a dynamic_update_slice — no generic
+    # gather/scatter.
     i = jnp.arange(NSIG, dtype=jnp.int32)
     k = shift + i
     ok = (k > 0) & (k < SIGNAL_SAMPLES)
@@ -183,16 +182,14 @@ def subtract_rows(sig_i, sig_q, bidx, f0, shift, drift, symbols, enable):
     decode per channel per round, wsprd/wsprd.c:781-789 sequencing is
     kept by the caller's round loop).
 
-    The row pick and write-back are one-hot MXU matmuls, NOT
-    gather/scatter — a batched scatter over (R, 45000) rows both
-    scalarizes at run time and explodes compile time on TPU."""
+    The row pick and write-back are one-hot matmuls, NOT
+    gather/scatter over (R, 45000) rows."""
     B = sig_i.shape[0]
     sel = (bidx[:, None] == jnp.arange(B, dtype=bidx.dtype)[None, :])
     sel_f = sel.astype(sig_i.dtype)              # (R, B) one-hot rows
-    # precision="highest" keeps the picked/written samples bit-exact:
-    # the TPU's default matmul truncates f32 operands to bfloat16
-    # (verified on this backend), which would corrupt every subtracted
-    # window's samples by ~-48 dB
+    # precision="highest" keeps the picked/written samples bit-exact: a
+    # default-precision matmul may round float32 operands to TF32 or
+    # bfloat16, which would corrupt every subtracted window's samples
     hp = dict(precision="highest", preferred_element_type=jnp.float32)
     row_i = jnp.dot(sel_f, sig_i, **hp)
     row_q = jnp.dot(sel_f, sig_q, **hp)

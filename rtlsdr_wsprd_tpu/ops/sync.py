@@ -19,14 +19,14 @@ correlation at EVERY static offset o is one matmul
 
 against a static offset-shifted tone matrix, and the leftover
 unit-modulus phase ``conj(E_cand)[c,i,o]`` vanishes under the
-magnitude. One MXU dispatch replaces the reference's per-lag /
+magnitude. One matmul replaces the reference's per-lag /
 per-jitter loop (and our former 33/43-step lax.scan). A
 frequency-offset factor E_freq[f,j] separates the same way for the
 mode-1 search.
 
 All complex arithmetic is PLANAR REAL (separate re/im float32 arrays):
-TPUs have no native complex type, so the correlations are explicit
-4-term real einsums and magnitudes are sqrt(re^2 + im^2).
+the correlations are explicit 4-term real einsums and magnitudes are
+sqrt(re^2 + im^2).
 
 Modes map to: fine_sync (mode 0 lag search + mode 1 freq search,
 wsprd/wsprd.c:709-726) and soft_symbols_jittered (mode 2 over the
@@ -48,24 +48,23 @@ from ..utils.channel import PR3_VECTOR
 
 TWOPIDT = 2.0 * np.pi * DT
 
-# Correlator operand precision (reductions always accumulate float32
-# via preferred_element_type). NB the TPU backend's DEFAULT matmul
-# already truncates f32 operands to bfloat16 (verified), so the MXU
-# einsums here are bf16-operand either way; this knob additionally
-# casts the elementwise derotate/phasor operands.
-# bf16 measured: ~5% end-to-end throughput gain, fixed-seed
-# sensitivity-sweep decode counts IDENTICAL to float32 at every SNR
-# point (-28..-31 dB) — so bf16 IS the library default on TPU (what
-# bench.py measures is what ships). CPU keeps float32 so the exact
-# elementwise parity tests stay meaningful. Override either way with
-# RTLSDR_WSPRD_TPU_SYNC_BF16=0/1. Resolved lazily at first trace, not
-# import, so importing the package never initializes an XLA backend
-# (required by jax.distributed.initialize, see multichannel._BIG).
+# Correlator operand dtype (reductions always accumulate float32 via
+# preferred_element_type): float32 on every backend, so parity tests and
+# the served path compute the same numbers. RTLSDR_WSPRD_TPU_SYNC_BF16=1
+# opts into bfloat16 operands, which also casts the elementwise
+# derotate/phasor operands; its effect on decode counts and speed on
+# the GPU is not measured. Resolved lazily at first trace, not import,
+# so importing the package never initializes an XLA backend (required
+# by jax.distributed.initialize, see multichannel._BIG).
 def _cdt():
     v = os.environ.get("RTLSDR_WSPRD_TPU_SYNC_BF16")
-    if v is not None:
-        return jnp.bfloat16 if v == "1" else jnp.float32
-    return jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+    return jnp.bfloat16 if v == "1" else jnp.float32
+
+
+# Matmul precision of the float32 correlator einsums. DEFAULT lets the
+# GPU run float32 operands as TF32 (10-bit mantissa); the soft symbols
+# are quantized to 8 bits after these sums.
+CORR_PRECISION = jax.lax.Precision.DEFAULT
 
 # E_TONE[j, t] = exp(-i * 2*pi*dt * (t-1.5)*DF * j): static tone phasors
 _j = np.arange(NSPERSYM, dtype=np.float64)
@@ -89,15 +88,13 @@ def _cand_phasor_conj(f0: jnp.ndarray, drift: jnp.ndarray,
     extends the pure exponential over the double-length symbol frames
     used by the offset-tensorized correlator (module docstring).
 
-    bf16 path (the TPU default): the sample-index axis is built by
+    bf16 path (opt-in, see _cdt): the sample-index axis is built by
     LOG-DOUBLING complex powers — E^u for u in [0, ulen) from 9 planar
     squaring/append rounds — instead of 2*C*162*ulen transcendental
-    evals. cos/sin are the VPU's slowest ops and this phasor is
-    regenerated three times per stage-B bucket, so the doubling is what
-    moves stage B off its transcendental cap; the ~1e-6 relative error
-    of 9 chained complex products is far below the bf16 truncation the
-    operands get anyway. The float32 (CPU/test) path keeps direct
-    cos/sin so exact-parity tests stay bit-stable.
+    evals; the ~1e-6 relative error of 9 chained complex products is
+    far below the bf16 truncation the operands get anyway. The float32
+    default keeps direct cos/sin so exact-parity tests stay
+    bit-stable.
     """
     cdt = _cdt()
     i = jnp.arange(NSYM, dtype=jnp.float32)
@@ -121,10 +118,9 @@ def _cand_phasor_conj(f0: jnp.ndarray, drift: jnp.ndarray,
             (-jnp.sin(phase)).astype(cdt))
 
 
-# ---- slice-based candidate windows (the TPU-fast path) ---------------------
+# ---- slice-based candidate windows ------------------------------------------
 #
-# Generic (C,162,256) gathers scalarize on TPU (~seconds per call).
-# Instead: one vmapped contiguous dynamic_slice pulls each candidate's
+# No generic (C,162,256) gather: one vmapped contiguous dynamic_slice pulls each candidate's
 # maximal window covering every lag/jitter offset; a single reshape +
 # concat then yields double-length symbol frames (C, 162, 512) from
 # which the correlation at every offset is one matmul (module
@@ -207,12 +203,12 @@ def _lane_windows(pi: jnp.ndarray, pq: jnp.ndarray, lane_w: jnp.ndarray,
 def _tone_mags(yr: jnp.ndarray, yi: jnp.ndarray,
                er: jnp.ndarray, ei: jnp.ndarray) -> jnp.ndarray:
     """y: (C,162,256) de-rotated samples (planar); e: (256, K) tone
-    (/freq) phasors (planar) -> |z|: (C,162,K). Four real einsums on
-    the MXU."""
-    zr = (jnp.einsum("cij,jk->cik", yr, er, preferred_element_type=jnp.float32)
-          - jnp.einsum("cij,jk->cik", yi, ei, preferred_element_type=jnp.float32))
-    zi = (jnp.einsum("cij,jk->cik", yr, ei, preferred_element_type=jnp.float32)
-          + jnp.einsum("cij,jk->cik", yi, er, preferred_element_type=jnp.float32))
+    (/freq) phasors (planar) -> |z|: (C,162,K). Four real einsums."""
+    kw = dict(precision=CORR_PRECISION, preferred_element_type=jnp.float32)
+    zr = (jnp.einsum("cij,jk->cik", yr, er, **kw)
+          - jnp.einsum("cij,jk->cik", yi, ei, **kw))
+    zi = (jnp.einsum("cij,jk->cik", yr, ei, **kw)
+          + jnp.einsum("cij,jk->cik", yi, er, **kw))
     return jnp.sqrt(zr * zr + zi * zi)
 
 

@@ -2,7 +2,7 @@
 
 The reference is a single-process, 3-pthread program
 (rtlsdr_wsprd.c:55-66,1161-1167) with no distributed backend; its only
-scaling axis is "one dongle, one band". This package is the TPU-native
+scaling axis is "one dongle, one band". This package is the
 first-class replacement (SURVEY.md section 5): channels/windows shard
 over a 1-D (or host x chip 2-D) ``jax.sharding.Mesh`` as pure data
 parallelism, and the streaming front end shards the 2.4 Msps time axis

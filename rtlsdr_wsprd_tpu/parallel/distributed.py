@@ -29,8 +29,8 @@ def initialize(coordinator: str | None = None,
                process_id: int | None = None) -> None:
     """Wire this process into a multi-host JAX runtime.
 
-    All-None arguments defer to environment auto-detection (TPU pod
-    metadata), which is the normal production path.
+    All-None arguments defer to JAX's environment auto-detection of a
+    cluster, where one exists; on a plain GPU host give all three.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator,

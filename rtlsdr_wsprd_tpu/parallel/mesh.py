@@ -2,7 +2,8 @@
 
 Axis convention:
   ``ch``   — channels/windows (pure data parallelism; the throughput
-             axis; rides ICI within a slice, DCN across hosts)
+             axis; rides the chip interconnect within a host, the
+             network across hosts)
   ``seq``  — the 2.4 Msps time axis of the streaming front end
              (overlap-save halo exchange between neighbors)
 

@@ -3,7 +3,7 @@ overlap-save halo exchange.
 
 The reference processes its 2.4 Msps stream on one core
 (rtlsdr_wsprd.c:126-244). When a single stream (or a fused multi-band
-stream) outgrows one chip's ingest, the TPU-native scaling axis is the
+stream) outgrows one chip's ingest, the scaling axis is the
 TIME dimension: shard the raw sample axis over the mesh, and exchange
 the (taps - R) filter-boundary samples between ring neighbors with one
 ``ppermute`` — the context/sequence-parallel analog for DSP

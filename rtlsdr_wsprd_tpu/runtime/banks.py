@@ -1,7 +1,7 @@
 """Aligned multi-channel raw ingest: many 2.4 Msps streams in lockstep.
 
 The reference serves exactly one dongle with one RX thread
-(rtlsdr_wsprd.c:255-259). The TPU build's production shape is many
+(rtlsdr_wsprd.c:255-259). This build's production shape is many
 simultaneous channels (dongles/bands) advancing through ONE batched
 device program per front-end step, so ingest is organized as a *bank*:
 ``read(n)`` returns planar uint8 chunks of identical length for every

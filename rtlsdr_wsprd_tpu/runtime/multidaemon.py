@@ -3,7 +3,7 @@
 The reference's live path is one continuously running chain — RX
 callback -> decimate -> window -> decode -> report
 (rtlsdr_wsprd.c:126-328) — for ONE channel. This module is its
-many-channel TPU analog, wiring the pieces end to end:
+many-channel analog, wiring the pieces end to end:
 
     RawBank (uint8, aligned chunks; runtime/banks.py)
       -> BatchedStreamingDecimator (one batched device program per
@@ -97,12 +97,11 @@ class MultiChannelDaemon:
         and drop pre-boundary samples before the first window (live
         banks; the reference's capture-at-boundary,
         rtlsdr_wsprd.c:1145-1160). ``frontend``: where the 6400:1
-        decimator runs — ``"device"`` (raw uint8 to the chip, MXU math;
+        decimator runs — ``"device"`` (raw uint8 to the chip;
         frontend/decimate.py), ``"host"`` (native C++ polyphase, only
         375 sps baseband crosses the link — 1600x fewer bytes;
-        frontend/host_decimate.py), or ``"auto"`` (host on RPC-tunneled
-        backends where link bytes are the scarce resource, device on
-        PCIe-attached chips). ``channelize``: wideband mode — the bank
+        frontend/host_decimate.py), or ``"auto"`` (= device).
+        ``channelize``: wideband mode — the bank
         is ONE raw stream (n_channels == 1, tuned to ``options.freq``)
         and each listed dial frequency becomes an output channel via
         per-dial derotation ahead of the shared polyphase chain
@@ -113,8 +112,8 @@ class MultiChannelDaemon:
         ``devices``: ``"default"`` decodes on the default device;
         ``"all"`` shards each window batch's channels across every
         local chip (decode_channels_pipelined_multidevice — the
-        one-host-many-chips production layout, BASELINE.md's v5e-16
-        target); or pass an explicit device list.
+        one-host-many-chips production layout); or pass an explicit
+        device list.
         ``strict_hash_order``: compatibility mode — serialize window
         batches when ``options.usehashtable``. Type-3 ``<hash>`` spots
         already resolve race-free by default (yield-time
@@ -293,9 +292,8 @@ class MultiChannelDaemon:
             ingest_thread: bool = True) -> list[list[list[Spot]]]:
         """Ingest + decode until the bank dries up (or ``max_windows``
         batches). Returns per-window-batch, per-channel spot lists.
-        Per-window isolation: a batch whose decode fails (even after
-        the device crash-retry envelope) yields no spots but never ends
-        the stream (SURVEY.md section 5). An INGEST failure — the bank
+        Per-window isolation: a batch whose decode fails yields no
+        spots but never ends the stream (SURVEY.md section 5). An INGEST failure — the bank
         itself died — does end the run, gracefully (stats + hashtable
         are preserved). ``ingest_thread=False`` runs ingest inline
         (deterministic single-thread mode)."""

@@ -6,7 +6,7 @@ t mod 120 == 0, swaps the double buffer and signals the decoder thread
 normalizes to -3 dB and timestamps the window at now - 119 s.
 
 Here the equivalent is a single-threaded host loop (JAX dispatch is
-already async; the decode "thread" is the TPU): pull samples from the
+already async; the decode "thread" is the device): pull samples from the
 Source between boundaries, hand each completed window to the decoder,
 then print/save/post. Per-window isolation: one bad window logs and
 never kills the stream (divergence from the C, which has no such

@@ -1,6 +1,6 @@
 """IQ sample sources: the framework's replacement for librtlsdr.
 
-TPU hosts have no USB dongles, so the device layer
+Accelerator hosts have no USB dongles, so the device layer
 (rtlsdr_wsprd.c:1044-1124) becomes a pluggable source interface with
 four implementations:
 
@@ -18,7 +18,7 @@ four implementations:
   real front-end decimator (full-chain testing without hardware).
 
 All sources yield 375 sps planar float32 (I, Q) baseband via
-``read(n)`` — planar because the TPU device path has no complex dtype.
+``read(n)`` — planar because the device path uses no complex dtype.
 """
 
 from __future__ import annotations
@@ -109,8 +109,7 @@ class SyntheticRawSource(Source):
     """2.4 Msps uint8 synthesis -> streaming polyphase front end."""
 
     def __init__(self, message="K1JT FN20QI 20", f0=50.0,
-                 amp_counts=25.0, noise_counts=3.0, seed: int = 1,
-                 use_pallas: bool = False):
+                 amp_counts=25.0, noise_counts=3.0, seed: int = 1):
         symbols = get_wspr_channel_symbols(message, WsprHashTable())
         if symbols is None:
             raise ValueError(f"unencodable message: {message!r}")
@@ -118,7 +117,7 @@ class SyntheticRawSource(Source):
             symbols, f0=f0, amp_counts=amp_counts,
             noise_counts=noise_counts, duration_s=126.0, seed=seed,
             chunk_s=2.0)
-        self._dec = StreamingDecimator(use_pallas=use_pallas)
+        self._dec = StreamingDecimator()
         self._bi = np.zeros(0, np.float32)
         self._bq = np.zeros(0, np.float32)
 
@@ -383,22 +382,21 @@ class RtlTcpConnection:
 
 
 class RtlTcpSource(Source):
-    """Single-channel stream from an rtl_tcp server through the TPU
-    front end: an RtlTcpConnection + streaming decimator. Multi-dongle
+    """Single-channel stream from an rtl_tcp server through the
+    streaming front end: an RtlTcpConnection + streaming decimator. Multi-dongle
     ingest uses runtime.banks.RtlTcpBank (one batched decimator over
     every connection) instead.
 
     ``frontend`` places the decimator like the many-channel daemon
     (frontend/host_decimate.py): "device" uploads the raw stream,
     "host" runs the native C++ polyphase so only 375 sps baseband
-    reaches the device, "auto" picks host on RPC-tunneled backends.
+    reaches the device, "auto" is "device".
     """
 
     def __init__(self, host: str, port: int, dialfreq_hz: int,
                  shift_hz: int = 0, upconverter_hz: int = 0,
                  gain_tenths_db: int = 290, autogain: bool = False,
                  ppm: int = 0, directsampling: int = 0,
-                 use_pallas: bool = False,
                  max_buffer_bytes: int = 256 << 20,
                  frontend: str = "auto", reconnect: bool = False):
         self._conn = RtlTcpConnection(
@@ -409,7 +407,6 @@ class RtlTcpSource(Source):
         from ..frontend.host_decimate import resolve_placement
 
         self.frontend_placement = resolve_placement(frontend)
-        self._use_pallas = use_pallas
         self._dec = self._make_dec()
         self._bi = np.zeros(0, np.float32)
         self._bq = np.zeros(0, np.float32)
@@ -420,7 +417,7 @@ class RtlTcpSource(Source):
             from ..frontend.host_decimate import HostStreamingDecimator
 
             return HostStreamingDecimator()
-        return StreamingDecimator(use_pallas=self._use_pallas)
+        return StreamingDecimator()
 
     @property
     def dropped_bytes(self) -> int:

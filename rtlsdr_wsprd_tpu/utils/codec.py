@@ -3,7 +3,7 @@
 Re-implements the reference's message unpacking (wsprd/wsprd_utils.c):
 ``unpack50`` (:40-71), ``unpackcall`` (:73-118), ``unpackgrid`` (:120-150),
 ``unpackpfx`` (:152-194) and the type-1/2/3 dispatcher ``unpk_`` (:228-313).
-String and bit manipulation is host work — it never touches the TPU — but
+String and bit manipulation is host work — it never touches the device — but
 it defines the protocol, so behavior tracks the C reference exactly,
 including its C-string quirks (space stripping, truncating snprintf
 formats, fields left empty for type-2 messages).

@@ -31,9 +31,10 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+from rtlsdr_wsprd_tpu import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 from rtlsdr_wsprd_tpu import multicli  # noqa: E402
 

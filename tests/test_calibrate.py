@@ -1,5 +1,5 @@
-"""Backend FEC calibration (ops/calibrate.py): the constants that
-round 3 hand-tuned are now chosen by measurement (VERDICT r3 item 7)."""
+"""Backend FEC calibration (ops/calibrate.py): the FEC mode and device
+budget are chosen by measurement of the attached backend."""
 
 import numpy as np
 import pytest
@@ -18,8 +18,8 @@ def _fresh_cache():
 
 @pytest.mark.skipif(not native.AVAILABLE, reason="no native lib")
 def test_calibration_cpu_is_measured_and_consistent():
-    """On the CPU test backend the decision must come from measurement
-    (no sniff shortcut applies) and must FOLLOW the measured economics
+    """With no override the decision must come from measurement on
+    every backend and must FOLLOW the measured economics
     — the mode is the box's to decide (a 1-core box measures 'host':
     the device path has no extra cores to win with; a wide host would
     measure 'hybrid'), the rule wiring is ours."""
@@ -56,21 +56,26 @@ def test_calibration_malformed_env_budget_is_ignored(monkeypatch, caplog):
 
 
 def test_describe_banner_forms(monkeypatch):
-    """The startup banner surfaces the calibrated FEC decision
-    (VERDICT r4 weak item 6): pinned, env and sniff forms."""
+    """The startup banner surfaces the calibrated FEC decision:
+    pinned, env and measured forms."""
     assert calibrate.describe("host") == "host (pinned by caller)"
     monkeypatch.setenv("RTLSDR_WSPRD_TPU_FEC", "hybrid")
     monkeypatch.setenv("RTLSDR_WSPRD_TPU_FEC_BUDGET", "64")
     s = calibrate.describe()
-    assert s.startswith("hybrid (method=env")
-    assert "device budget=64" in s
+    assert s == "hybrid (method=env, device budget=64 cycles)"
     calibrate._CACHE.clear()
     monkeypatch.delenv("RTLSDR_WSPRD_TPU_FEC")
     monkeypatch.delenv("RTLSDR_WSPRD_TPU_FEC_BUDGET")
-    monkeypatch.setattr(calibrate, "_tunneled", lambda: True)
+    if not native.AVAILABLE:
+        return
+    monkeypatch.setattr(calibrate, "measure_device_fano_cycle_ms",
+                        lambda device=None, lanes=32: 0.12)
+    monkeypatch.setattr(calibrate, "measure_native_fano_ms",
+                        lambda: (0.03, 12.0))
     s = calibrate.describe()
-    assert s.startswith("host (method=sniff)")
-    assert "platform-sniffed" in s
+    assert s == ("hybrid (method=measured, device budget=64 cycles; "
+                 "device 0.12 ms/cycle, native clean 0.03 / timeout "
+                 "12 ms)")
 
 
 def test_multidaemon_records_fec_in_stats(monkeypatch):
@@ -104,38 +109,38 @@ def test_device_budget_never_exceeds_full(monkeypatch):
 
 
 def test_decision_rule_host_when_device_cycles_dominate(monkeypatch):
-    """Simulated tunnel economics (~3 ms per maxcycle of the real
-    device decoder) must pick 'host'; simulated PCIe economics must
-    pick 'hybrid' with a larger budget."""
+    """A slow device decoder (~3 ms per maxcycle) must pick 'host'; a
+    fast one must pick 'hybrid' with a larger budget."""
     if not native.AVAILABLE:
         pytest.skip("no native lib")
     monkeypatch.setattr(calibrate, "measure_device_fano_cycle_ms",
-                        lambda device=None, lanes=32, unroll=None: 3.0)
+                        lambda device=None, lanes=32: 3.0)
     monkeypatch.setattr(calibrate, "measure_native_fano_ms",
                         lambda: (0.03, 12.0))
-    monkeypatch.setattr(calibrate, "_tunneled", lambda: False)
-    monkeypatch.setattr(calibrate, "_default_unroll", lambda: 32)
     cal = calibrate.get_fec_calibration()
     assert cal.mode == "host"  # 16 * 3.0 = 48 ms > 2 * 12 ms
 
     calibrate._CACHE.clear()
     monkeypatch.setattr(calibrate, "measure_device_fano_cycle_ms",
-                        lambda device=None, lanes=32, unroll=None: 0.12)
+                        lambda device=None, lanes=32: 0.12)
     cal = calibrate.get_fec_calibration()
     assert cal.mode == "hybrid"  # 16 * 0.12 = 1.9 ms < 24 ms
     # 12 / 0.12 = 100 -> the 64 bucket
     assert cal.device_maxcycles == 64
 
 
-def test_sniffed_tunnel_skips_measurement(monkeypatch):
-    if not native.AVAILABLE:
-        pytest.skip("no native lib")
-    monkeypatch.setattr(calibrate, "_tunneled", lambda: True)
-    cal = calibrate.get_fec_calibration()
-    assert cal.mode == "host"
-    assert cal.method == "sniff"
-    assert cal.device_maxcycles == DEVICE_MAXCYCLES
-    assert cal.device_cycle_ms == -1.0
+def test_one_unroll_constant_for_decoder_and_calibration(monkeypatch):
+    """batched_fano's default unroll and the calibration's recorded
+    unroll are the same module constant, on every backend."""
+    import inspect
+
+    from rtlsdr_wsprd_tpu.ops import fano
+
+    sig = inspect.signature(fano.batched_fano)
+    assert sig.parameters["unroll"].default == fano.FANO_UNROLL
+    assert calibrate.FANO_UNROLL is fano.FANO_UNROLL
+    monkeypatch.setenv("RTLSDR_WSPRD_TPU_FEC", "host")
+    assert calibrate.get_fec_calibration().unroll == fano.FANO_UNROLL
 
 
 def test_measure_native_fano_orders_sanely():

@@ -1,7 +1,10 @@
-"""End-to-end decode parity against the full reference decoder oracle.
+"""End-to-end decode parity against the full reference decoder oracle,
+and against ground truth on seeded synthetic windows.
 
 The oracle is the reference wsprd compiled with our FFT shim
-(tests/oracle/), giving exact reference spot values for any input.
+(tests/oracle/), giving exact reference spot values for any input;
+where it is absent, the synthetic-window tests still check the decode
+modes against the transmitted messages and the dense decode_window.
 """
 
 import numpy as np
@@ -84,17 +87,50 @@ def test_snr_sweep_message_parity(snr_db, tmp_path):
     assert [s.message for s in mine] == [s.message for s in ref]
 
 
-def test_quickmode(tmp_path):
-    i, q = read_iq_file("/root/reference/signals/refSignalSnr0dB.iq")
+def _two_signal_window():
+    """Seeded synthetic window: a strong and a weak transmission."""
+    i, q = synth_window_at_snr(["K1JT FN20 20", "W1AW FN31 10"],
+                               snr_db=[0, -12], f0=[-60, 40],
+                               t0=[2.0, 1.0], seed=41)
+    return normalize_minus3db(i, q)
+
+
+def _staged_matches_dense_and_truth(i, q, opts):
+    """The staged production path (WsprDecoder) decodes exactly the
+    transmitted messages and agrees with the dense decode_window
+    reference field by field."""
+    from rtlsdr_wsprd_tpu.models.decoder import WsprDecoder
+
+    mine = WsprDecoder(opts).decode(i, q)
+    dense = decode_window(i, q, opts)
+    assert sorted(s.message for s in mine) == ["K1JT FN20 20",
+                                               "W1AW FN31 10"]
+    key = (lambda s: s.message)
+    _assert_spots_match(sorted(mine, key=key), sorted(dense, key=key))
+
+
+def test_quickmode():
+    """-Q: one jitter, coarser lag grid (rtlsdr_wsprd.c:963-966)."""
+    _staged_matches_dense_and_truth(*_two_signal_window(),
+                                    OPTS.with_(quickmode=True))
+
+
+def test_single_pass_mode():
+    """-S: npasses=1, no subtraction (rtlsdr_wsprd.c:967-970)."""
+    _staged_matches_dense_and_truth(
+        *_two_signal_window(), OPTS.with_(npasses=1, subtraction=False))
+
+
+def test_quickmode_golden_parity(golden_iq_path, tmp_path):
+    i, q = read_iq_file(golden_iq_path)
     opts = OPTS.with_(quickmode=True)
     mine = decode_window(i, q, opts)
     ref = _ref(i, q, tmp_path, quickmode=True)
     _assert_spots_match(mine, ref)
 
 
-def test_single_pass_mode(tmp_path):
-    """-S: npasses=1, no subtraction (rtlsdr_wsprd.c:967-970)."""
-    i, q = read_iq_file("/root/reference/signals/refSignalSnr0dB.iq")
+def test_single_pass_golden_parity(golden_iq_path, tmp_path):
+    i, q = read_iq_file(golden_iq_path)
     opts = OPTS.with_(npasses=1, subtraction=False)
     mine = decode_window(i, q, opts)
     ref = _ref(i, q, tmp_path, npasses=1, subtraction=False)

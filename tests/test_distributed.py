@@ -1,7 +1,7 @@
 """Multi-process (multi-'host') jax.distributed tests on a CPU cluster.
 
 SURVEY.md section 5 and BASELINE.md demand an N>=2-host story; real
-multi-host TPU hardware isn't available here, so two OS processes with
+multi-host hardware isn't available here, so two OS processes with
 4 virtual CPU devices each form a genuine 2-process JAX cluster
 (coordinator + Gloo collectives). tests/dist_worker.py runs the actual
 assertions; this driver only orchestrates and checks exit status.
@@ -13,6 +13,8 @@ import subprocess
 import sys
 
 import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _WORKER = os.path.join(os.path.dirname(__file__), "dist_worker.py")
 _DAEMON_WORKER = os.path.join(os.path.dirname(__file__),
@@ -49,7 +51,7 @@ def test_import_does_not_initialize_backend():
     module-level jnp constant that broke this."""
     r = subprocess.run([sys.executable, "-c", _IMPORT_SPY],
                        env={**os.environ, "JAX_PLATFORMS": "cpu"},
-                       cwd="/root/repo", capture_output=True, text=True,
+                       cwd=REPO, capture_output=True, text=True,
                        timeout=600)
     assert r.returncode == 0, (r.returncode, r.stderr[-2000:])
 
@@ -67,7 +69,7 @@ def test_two_process_distributed_decode():
         subprocess.Popen(
             [sys.executable, _WORKER, str(rank), "2", str(port)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, env=env, cwd="/root/repo")
+            text=True, env=env, cwd=REPO)
         for rank in (0, 1)
     ]
     outs = []
@@ -103,7 +105,7 @@ def test_two_process_integrated_daemon():
         subprocess.Popen(
             [sys.executable, _DAEMON_WORKER, str(rank), "2", str(port)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, env=env, cwd="/root/repo")
+            text=True, env=env, cwd=REPO)
         for rank in (0, 1)
     ]
     outs = []

@@ -1,4 +1,4 @@
-"""Front-end decimator: spectral properties, XLA/Pallas equivalence,
+"""Front-end decimator: spectral properties, batched/streaming equivalence,
 streaming-state continuity, and raw-capture end-to-end decode."""
 
 import numpy as np
@@ -78,24 +78,6 @@ def test_stage2_stopband():
 def test_kaiser_dc_gain():
     h = kaiser_lowpass(101, 1000.0, 48000.0)
     assert abs(np.sum(h) - 1.0) < 1e-12
-
-
-def test_pallas_matches_xla():
-    rng = np.random.default_rng(5)
-    n_frames = 700  # spans >1 grid program (F_BLK=512)
-    n = n_frames * R1 + STAGE1_TAPS - R1
-    i = rng.normal(0, 1, n).astype(np.float32)
-    q = rng.normal(0, 1, n).astype(np.float32)
-    from rtlsdr_wsprd_tpu.frontend.pallas_decimate import (
-        decimate_stage1_pallas,
-    )
-    xi, xq = decimate_stage1_xla(jnp.asarray(i), jnp.asarray(q), n_frames)
-    pi, pq = decimate_stage1_pallas(jnp.asarray(i), jnp.asarray(q),
-                                    n_frames, interpret=True)
-    np.testing.assert_allclose(np.asarray(pi), np.asarray(xi), rtol=0,
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(pq), np.asarray(xq), rtol=0,
-                               atol=1e-4)
 
 
 def test_batched_stage1_matches_single_stream():
@@ -469,3 +451,21 @@ def test_channelizer_host_matches_device():
     scale = np.abs(dI).max()
     np.testing.assert_allclose(hI, dI, atol=2e-4 * scale)
     np.testing.assert_allclose(hQ, dQ, atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("arg,want", [("auto", "device"),
+                                      ("device", "device"),
+                                      ("host", "host")])
+def test_resolve_placement(arg, want):
+    """'auto' places the front end on the device on every backend."""
+    from rtlsdr_wsprd_tpu.frontend.host_decimate import resolve_placement
+
+    assert resolve_placement(arg) == want
+
+
+def test_resolve_placement_rejects_unknown():
+    from rtlsdr_wsprd_tpu.frontend.host_decimate import resolve_placement
+
+    with pytest.raises(ValueError):
+        resolve_placement("tunnel")
+

@@ -140,6 +140,49 @@ def test_pipelined_multidevice_matches_and_places(batch3, monkeypatch):
     assert len({str(d) for d in placed}) == 3
 
 
+def test_staged_pass_operands_on_window_device(batch3, monkeypatch):
+    """Every device program of the staged path runs on the device that
+    holds the windows: no operand is left uncommitted on the default
+    device."""
+    from rtlsdr_wsprd_tpu.parallel import multichannel as mc
+
+    dev = jax.devices()[2]
+    seen = []
+
+    def spy(name):
+        real = getattr(mc, name)
+
+        def wrapped(*a, **kw):
+            devs = {d for x in (*a, *kw.values())
+                    if isinstance(x, jax.Array) for d in x.devices()}
+            seen.append((name, devs))
+            return real(*a, **kw)
+        monkeypatch.setattr(mc, name, wrapped)
+
+    for name in ("_stage_a_packed", "_stage_b_packed", "subtract_rows"):
+        spy(name)
+    wi = np.stack([i for i, q in batch3])
+    wq = np.stack([q for i, q in batch3])
+    spots = decode_channels(wi, wq, DecoderOptions(quickmode=True),
+                            device_batch=3, device=dev)
+    assert any(spots)
+    assert {n for n, _ in seen} == {"_stage_a_packed", "_stage_b_packed",
+                                    "subtract_rows"}
+    assert all(devs == {dev} for _, devs in seen), seen
+
+
+def test_device_fed_handle_adopts_its_planes_device():
+    """A prepare_windows_device handle built without ``device`` puts
+    its operands where its planes live."""
+    from rtlsdr_wsprd_tpu.parallel.multichannel import prepare_windows_device
+
+    dev = jax.devices()[3]
+    z = jax.device_put(np.zeros((2, 45000), np.float32), dev)
+    h = prepare_windows_device(z, z, device_batch=2)
+    assert h.device == dev
+    assert h.put(np.arange(3)).devices() == {dev}
+
+
 def test_pipelined_multidevice_accepts_per_shard_handles(batch3):
     """VERDICT r4 weak item 4: pre-placed per-shard window handles
     (the on-device front end's zero-host-round-trip feed) must ride the
@@ -406,8 +449,7 @@ def test_graft_entry_contract():
 
 
 def test_pipelined_on_error_isolates_poisoned_batch(monkeypatch):
-    """A batch whose decode fails even after the crash-retry envelope
-    yields empty spot lists and the stream continues (per-window
+    """A batch whose decode fails yields empty spot lists and the stream continues (per-window
     isolation, SURVEY.md section 5); without on_error it raises."""
     import rtlsdr_wsprd_tpu.parallel.multichannel as mc
 

@@ -235,8 +235,8 @@ def test_multichannel_raw_to_spots_end_to_end():
 def test_multichannel_daemon_all_devices_end_to_end():
     """Full raw-uint8 -> spots chain with the channel bank sharded
     across ALL local devices (the 8 virtual CPU devices here;
-    devices='all' — the one-host-many-chips production layout,
-    BASELINE.md's v5e-16 target). Every channel decodes its exact
+    devices='all' — the one-host-many-chips production layout).
+    Every channel decodes its exact
     message; shards actually land on distinct devices."""
     import jax
 
@@ -276,9 +276,8 @@ def test_multichannel_daemon_all_devices_end_to_end():
 @pytest.mark.slow
 def test_multichannel_host_frontend_end_to_end():
     """Full chain with the HOST-placed front end (native C++ polyphase,
-    frontend='host'): raw uint8 -> exact decoded message. The placement
-    the daemon auto-selects on RPC-tunneled backends, where only
-    375 sps baseband crosses the host->device link."""
+    frontend='host'): raw uint8 -> exact decoded message. Only 375 sps
+    baseband crosses the host->device link."""
     from rtlsdr_wsprd_tpu import native
 
     if not native.HAS_DECIMATE:

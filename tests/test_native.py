@@ -37,7 +37,7 @@ def test_conv_encode_parity():
 
 
 def test_fano_oracle_matches_batched():
-    """The sequential C++ Fano and the batched TPU Fano are the same
+    """The sequential C++ Fano and the batched device Fano are the same
     machine: identical success flags, bytes, metrics AND cycle counts
     on clean, noisy and undecodable inputs."""
     import jax.numpy as jnp

@@ -692,8 +692,8 @@ def test_rtltcp_source_rejects_bad_header():
 
 
 def test_rtltcp_source_host_frontend_matches_device():
-    """RtlTcpSource(frontend='host') — the native C++ placement the
-    single-channel daemon auto-selects on tunneled backends — yields
+    """RtlTcpSource(frontend='host') — the native C++ placement —
+    yields
     the same 375 sps baseband as the device placement from an
     identical stream."""
     from rtlsdr_wsprd_tpu import native

@@ -158,8 +158,8 @@ def test_daemon_survives_restart_poison_and_overflow(monkeypatch):
         reconnect=True, reconnect_backoff_s=0.1, max_reconnects=2,
         max_buffer_bytes=RING))])
 
-    # fault (b): the SECOND window batch's decode dies even after the
-    # internal crash-retry envelope; depth=1 makes batch order == call
+    # fault (b): the SECOND window batch's decode dies; depth=1 makes
+    # batch order == call
     # order deterministic
     real = mc.decode_channels
     calls = {"n": 0}

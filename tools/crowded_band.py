@@ -12,8 +12,8 @@ Round 5 addition (VERDICT r4 next-step 2): the same windows are also
 decoded with MORE passes than the reference can afford — its
 ``ipass==2`` branch (maxdrift=0, minsync2 relaxed to 0.10,
 wsprd/wsprd.c:521-531) ships DEAD because npasses is hard-coded to 2;
-our pass loop implements it (multichannel.py pass loop), and the TPU's
-~400x headroom makes a third pass nearly free. Each configured pass
+our pass loop implements it (multichannel.py pass loop), so a third
+pass costs only device time. Each configured pass
 count decodes the SAME windows, so the deltas are paired.
 
 Usage: python tools/crowded_band.py [n_windows] [max_signals] [cfg,cfg,...]

@@ -29,7 +29,7 @@ rests on, is:
    Python thread dispatch costs ~1e-2 of one timeout lane.
 
 Usage: python tools/fec_scaling.py [lanes] [reps]
-Prints one JSON line; recorded in PARITY.md. CPU-only (no TPU).
+Prints one JSON line; recorded in PARITY.md. CPU-only (no accelerator).
 """
 
 from __future__ import annotations
